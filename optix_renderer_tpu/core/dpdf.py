@@ -1,6 +1,6 @@
 """Discrete probability distributions as arrays (CDF + searchsorted).
 
-TPU-native counterpart of the reference `DiscretePDF` (include/nori/dpdf.h:55-206):
+Counterpart of the reference `DiscretePDF` (include/nori/dpdf.h:55-206):
 `append/normalize` become a single vectorized build; `sample`/`sampleReuse`
 become `searchsorted` over the CDF — an XLA-native binary search that batches
 over whole ray wavefronts. Used for emitter picking (scene.cpp:179-184),

@@ -1,6 +1,6 @@
 """Math substrate: constants, vector helpers, shading frames, rays, fresnel.
 
-TPU-native counterpart of the reference's Eigen-based L0 layer
+Counterpart of the reference's Eigen-based L0 layer
 (`include/nori/{vector,color,frame,ray,common}.h`). Everything here operates on
 batched `[..., 3]` float32 arrays (struct-of-arrays), is jit/vmap/grad-safe, and
 avoids data-dependent control flow (`jnp.where` instead of branches).

@@ -9,7 +9,7 @@ Two generators, mirroring the reference's two device paths:
   against a pure-Python integer model in tests/test_rng.py.
 - **tea/lcg** — the counter-based hash RNG of the reference GPU path
   (`include/nori/optix/cuda/sutil/random.h:34-68`): `tea<4>(pixel, sample)`
-  seeds a 32-bit LCG. Stateless per lane → ideal for TPU wavefronts.
+  seeds a 32-bit LCG. Stateless per lane → ideal for ray wavefronts.
 
 All functions are shape-polymorphic: state arrays have a trailing dim of 2
 (pcg32: [state_hi, state_lo] ... inc is passed alongside) and any batch shape.

@@ -1,12 +1,12 @@
 """Learned denoiser: small residual CNN over RGB+albedo+normal AOVs.
 
-TPU-native replacement of the reference's OptiX AI denoiser
+Replacement of the reference's OptiX AI denoiser
 (include/nori/optix/OptixState.denoiser.cpp:15-152 — HDR model with
 RGB+albedo+normal inputs, invoked on the accumulated frame): the same
 3-buffer interface (integrator.h:29-39 ERenderLayer), but the model is ours —
 a 4-layer conv net predicting a residual over the noisy radiance, trained on
 self-rendered noisy/clean pairs with optax. Convolutions are NHWC
-`lax.conv_general_dilated` — XLA lowers them onto the MXU.
+`lax.conv_general_dilated`, which XLA hands to cuDNN on the GPU.
 
 The non-learned cross-bilateral filter (denoise/bilateral.py, the analog of
 src/denoiser/simple.cpp) remains the fallback when no checkpoint exists.
@@ -36,6 +36,10 @@ def init_params(seed: int = 0):
 
 
 def _conv(x, w, b):
+    # default precision: a GPU may run these in TF32 (about three decimal
+    # digits). The net's output is an estimate trained to a tolerance far
+    # looser than that (its tests compare against a noisy-input baseline,
+    # tests/test_denoiser.py), so full float32 would buy nothing here.
     y = jax.lax.conv_general_dilated(
         x, w, window_strides=(1, 1), padding="SAME",
         dimension_numbers=("NHWC", "HWIO", "NHWC"),

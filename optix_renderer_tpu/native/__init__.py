@@ -1,6 +1,6 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The accelerator compute path is JAX/XLA/Pallas; host-side scene-compile work
+The accelerator compute path is JAX/XLA; host-side scene-compile work
 that the reference does in C++ (TBB-parallel BVH build, bvh.cpp:36-120) is
 C++ here too. Libraries are compiled on demand with g++ and cached next to
 the sources; every consumer falls back to its numpy reference implementation

@@ -1,7 +1,7 @@
 // Native LBVH builder — the C++ fast path behind ops/bvh.py.
 //
 // Replaces the reference's TBB-parallel binned-SAH build (src/utils/bvh.cpp:
-// 36-120) with the TPU-friendly LBVH scheme the Python reference
+// 36-120) with the LBVH scheme the Python reference
 // implementation (ops/bvh.py build_lbvh_numpy) defines: 30-bit Morton sort of
 // centroid codes, fixed-size leaves, DFS-preorder median-split tree with
 // escape links. Bit-identical output to the numpy path (same layout contract)

@@ -4,7 +4,7 @@ Batched, branch-free counterpart of the reference BSDF plugins
 (src/bsdf/{diffuse,mirror,dielectric,microfacet,disney}.cpp, interface
 bsdf.h:82-110). All directions are in the local shading frame (+z = normal);
 per-lane material ids select between types via `jnp.where` — every type's
-arithmetic runs for every lane, which on TPU is cheaper than divergence.
+arithmetic runs for every lane, so the wavefront never diverges.
 
 Measure semantics match the reference exactly: smooth lobes are ESolidAngle,
 specular lobes are EDiscrete (eval/pdf ≡ 0, sample returns the full weight) —

@@ -1,6 +1,6 @@
 """LBVH: Morton-ordered bounding volume hierarchy for large triangle meshes.
 
-TPU-native replacement of the reference's binned-SAH BVH (include/nori/bvh.h,
+Replacement of the reference's binned-SAH BVH (include/nori/bvh.h,
 src/utils/bvh.cpp:36-462, TBB task-parallel build + iterative traversal) and
 of the OptiX GAS/IAS builds (OptixState.as.cpp:47-248). The design differs
 deliberately (SURVEY.md §2.8 item 5, §7 phase 2):
@@ -16,9 +16,9 @@ deliberately (SURVEY.md §2.8 item 5, §7 phase 2):
 * **Traversal** is stackless and lane-vectorized: nodes carry an *escape*
   (skip) link, so each ray keeps a single int32 cursor instead of a stack —
   one gather + one AABB slab test + `LEAF_SIZE` triangle tests per step, all
-  shapes static. This maps onto the TPU VPU (wide masked vector ops, no
-  per-lane stacks in VMEM) far better than the reference's per-thread stack
-  (bvh.cpp iterative traversal) would.
+  shapes static, so XLA runs the whole wavefront as wide masked vector ops
+  with no per-lane stack (unlike the reference's per-thread stack,
+  bvh.cpp iterative traversal).
 
 Triangles keep their original global order — leaves index them through the
 `prim` permutation so emitter area-CDFs (build.py) and `make_interaction`
@@ -56,13 +56,13 @@ class Bvh(NamedTuple):
     `first[i]` is the offset of a leaf's primitives in `prim` (−1 for interior
     nodes). Every leaf owns exactly LEAF_SIZE slots in `prim`, padded with −1.
 
-    `packed`/`leaf` are gather-optimized copies: the traversal walk is
-    HBM-gather-bound on TPU (one XLA gather per array per step), so node
+    `packed`/`leaf` are gather-optimized copies: each traversal step is
+    one XLA gather per array it reads, so node
     fields are packed into ONE [Nn,8] row (min·3, max·3, skip, first — int32
     links bitcast into the float32 row) and each leaf's primitive data into
     ONE row of `leaf` (triangles: LEAF_SIZE×(v0,e1,e2, id_bits) = 40 cols;
     spheres: LEAF_SIZE×(center, radius, id_bits) = 20 cols). This cuts the
-    walk from 8 gathers per step to 2 — the TPU analog of the reference's
+    walk from 8 gathers per step to 2 — the analog of the reference's
     32-byte cache-line node layout (include/nori/bvh.h:127-164).
     """
 
@@ -405,7 +405,7 @@ def _traverse_walk(
     """The raw stackless walk (non-differentiable `lax.while_loop`).
 
     Gather-optimized: ONE packed-node row gather + ONE packed-leaf row gather
-    per step (the walk is HBM-gather-bound; see Bvh.packed). `tri_v0/e1/e2`
+    per step (see Bvh.packed). `tri_v0/e1/e2`
     are unused here — the leaf rows carry the triangle data — but stay in the
     signature for the differentiable replay wrapper.
     """

@@ -10,11 +10,16 @@ static config value and fov/lens parameters stay differentiable.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from optix_renderer_tpu.core import warp
 from optix_renderer_tpu.core.math import EPSILON, PI, Ray, normalize
 from optix_renderer_tpu.scene.data import Camera
+
+# Ray geometry must not run in TF32, which a GPU may use for a float32
+# product at default precision: ask for full float32 in every camera product.
+_HI = jax.lax.Precision.HIGHEST
 
 
 def sample_to_camera_matrix(cam: Camera, width: int, height: int) -> jnp.ndarray:
@@ -44,17 +49,17 @@ def sample_to_camera_matrix(cam: Camera, width: int, height: int) -> jnp.ndarray
         ],
         jnp.float32,
     )
-    return jnp.linalg.inv(screen @ persp)
+    return jnp.linalg.inv(jnp.matmul(screen, persp, precision=_HI))
 
 
 def _xform_point(m: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
-    r = p @ m[:3, :3].T + m[:3, 3]
-    w = p @ m[3, :3].T + m[3, 3]
+    r = jnp.matmul(p, m[:3, :3].T, precision=_HI) + m[:3, 3]
+    w = jnp.matmul(p, m[3, :3], precision=_HI) + m[3, 3]
     return r / w[..., None]
 
 
 def _xform_vector(m: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
-    return v @ m[:3, :3].T
+    return jnp.matmul(v, m[:3, :3].T, precision=_HI)
 
 
 def sample_ray(

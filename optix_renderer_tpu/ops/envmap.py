@@ -1,6 +1,6 @@
 """Image-based environment map: luminance-importance sampling + eval/pdf.
 
-TPU-native counterpart of the reference EnvMap emitter
+Counterpart of the reference EnvMap emitter
 (src/emitters/environmentmap.cpp:73-168): the per-pixel luminance DPDF
 (calculateProbs, :154-168) becomes a flat CDF over the lat-long grid sampled
 with `searchsorted`; eval (:118-131) is a batched nearest gather.
@@ -30,6 +30,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from optix_renderer_tpu.core import dpdf as dpdf_mod
@@ -102,7 +103,8 @@ def build_tables(
 def _dir_to_rc(env: EnvmapTables, d: jnp.ndarray):
     """World direction → (row, col, theta) on the oriented grid."""
     h, w = env.img.shape[0], env.img.shape[1]
-    dm = d @ env.rot.T  # rotated into map space (PNGTexture rot * wi)
+    # rotated into map space (PNGTexture rot * wi); full float32, never TF32
+    dm = jnp.matmul(d, env.rot.T, precision=jax.lax.Precision.HIGHEST)
     theta = jnp.arccos(jnp.clip(dm[..., 2], -1.0, 1.0))
     phi = jnp.arctan2(dm[..., 1], dm[..., 0])
     phi = jnp.where(phi < 0.0, phi + 2.0 * PI, phi)
@@ -165,7 +167,8 @@ def sample_dir(
     st = jnp.sqrt(jnp.maximum(1.0 - ct * ct, 0.0))
     phi = (c.astype(jnp.float32) + u2[..., 1]) / w * (2.0 * PI)
     dm = jnp.stack([st * jnp.cos(phi), st * jnp.sin(phi), ct], -1)
-    d = dm @ env.rot  # inverse rotation (rot is orthonormal: R⁻¹ = Rᵀ)
+    # inverse rotation (rot is orthonormal: R⁻¹ = Rᵀ); full float32
+    d = jnp.matmul(dm, env.rot, precision=jax.lax.Precision.HIGHEST)
     pdf = pick.pmf[idx] / jnp.maximum(_row_omega(env, r), 1e-12)
     value = env.img[r, c]
     return d, pdf, value

@@ -1,11 +1,12 @@
 """Ray–scene intersection: batched Möller–Trumbore + analytic spheres.
 
-TPU-native replacement of the reference's BVH traversal + per-shape
-`rayIntersect` virtuals (src/utils/bvh.cpp, src/shapes/{mesh,sphere}.cpp):
-rays are a wavefront `[N]`, primitives a flat SoA table; the kernel streams
-triangle chunks through a `lax.scan` keeping per-ray running minima in
-registers/VMEM. A chunked brute-force sweep is optimal for small scenes
-(Cornell box); `ops.bvh` provides the LBVH path for large meshes.
+Replacement of the reference's BVH traversal + per-shape `rayIntersect`
+virtuals (src/utils/bvh.cpp, src/shapes/{mesh,sphere}.cpp): rays are a
+wavefront `[N]`, primitives a flat SoA table. The path is chosen from the
+scene's shape alone: below `bvh.MIN_TRIS_FOR_BVH` triangles (and
+`bvh.MIN_SPHS_FOR_BVH` spheres) a brute-force sweep whose `[N, T]`
+compare-and-argmin XLA fuses into one reduction; at or above them the LBVH
+walk of `ops.bvh`.
 
 All shapes are in world space (baked at build). Hit payload mirrors the
 reference `Intersection` (shape.h:37-99): p, shading/geo frames, uv, shape id.
@@ -27,7 +28,6 @@ from optix_renderer_tpu.core.math import (
     normalize,
 )
 from optix_renderer_tpu.ops import bvh as bvh_mod
-from optix_renderer_tpu.ops.pallas.mt_kernel import mt_closest_hit
 from optix_renderer_tpu.scene.data import Geometry
 
 # primitive kinds in hit records
@@ -35,7 +35,7 @@ PRIM_NONE = 0
 PRIM_TRI = 1
 PRIM_SPHERE = 2
 
-_SPH_CHUNK = 512
+_BIG = 3.4e38
 
 
 class Hit(NamedTuple):
@@ -85,6 +85,63 @@ def _ray_spheres(o, d, center, radius):
     return tn, tf, ok
 
 
+def _mt_jnp(o, d, mint, cutoff, v0, e1, e2):
+    """Brute-force closest hit of rays against every triangle.
+
+    o,d: [N,3]; mint/cutoff: [N]; v0/e1/e2: [T,3]. Returns (t, u, v, idf)
+    each [N]; idf is the winning triangle id as float (−1 where no hit;
+    t = cutoff there).
+    """
+    pvec = jnp.cross(d[:, None, :], e2[None, :, :])
+    det = jnp.sum(e1[None, :, :] * pvec, axis=-1)
+    inv_det = 1.0 / jnp.where(jnp.abs(det) > 1e-12, det, 1e-12)
+    tvec = o[:, None, :] - v0[None, :, :]
+    u = jnp.sum(tvec * pvec, axis=-1) * inv_det
+    qvec = jnp.cross(tvec, e1[None, :, :])
+    v = jnp.sum(d[:, None, :] * qvec, axis=-1) * inv_det
+    t = jnp.sum(e2[None, :, :] * qvec, axis=-1) * inv_det
+    hit = (
+        (jnp.abs(det) > 1e-12)
+        & (u >= 0.0)
+        & (v >= 0.0)
+        & (u + v <= 1.0)
+        & (t >= mint[:, None])
+        & (t < cutoff[:, None])
+    )
+    tm = jnp.where(hit, t, _BIG)
+    j = jnp.argmin(tm, axis=-1)
+    rows = jnp.arange(o.shape[0])
+    tj = tm[rows, j]
+    better = tj < cutoff
+    t_out = jnp.where(better, tj, cutoff)
+    u_out = jnp.where(better, u[rows, j], 0.0)
+    v_out = jnp.where(better, v[rows, j], 0.0)
+    idf = jnp.where(better, j.astype(jnp.float32), -1.0)
+    return t_out, u_out, v_out, idf
+
+
+def mt_closest_hit(o, d, mint, cutoff, v0, e1, e2):
+    """Closest hit of a ray wavefront against a triangle table.
+
+    Outputs (t, u, v, idf[N] float, −1 = miss, t = cutoff there).
+
+    Differentiable by detach-and-replay: the sweep runs on
+    `stop_gradient`-detached inputs (the winner *selection* is discrete);
+    (t, u, v) are then recomputed from the live inputs at the winning
+    triangle, so the backward pass is one gather + ~40 flops per lane and
+    the [N, T] candidate matrix is not differentiated.
+    """
+    sg = jax.lax.stop_gradient
+    _, _, _, idf = _mt_jnp(sg(o), sg(d), sg(mint), sg(cutoff), sg(v0), sg(e1), sg(e2))
+    found = idf >= 0.0
+    gid = jnp.maximum(idf, 0.0).astype(jnp.int32)
+    t_r, u_r, v_r = bvh_mod.replay_tri(o, d, v0[gid], e1[gid], e2[gid])
+    t = jnp.where(found, t_r, cutoff)
+    u = jnp.where(found, u_r, 0.0)
+    v = jnp.where(found, v_r, 0.0)
+    return t, u, v, idf
+
+
 def intersect(geom: Geometry, ray: Ray, any_hit: bool = False) -> Hit:
     """Closest-hit (or any-hit) of a ray wavefront against the whole scene.
 
@@ -101,65 +158,11 @@ def intersect(geom: Geometry, ray: Ray, any_hit: bool = False) -> Hit:
     )
 
     n_tris = geom.tri_v0.shape[0]
-    if (
-        geom.clusters is not None
-        and jax.default_backend() == "tpu"
-    ):
-        # Morton-cluster Pallas traversal (ops/pallas/cluster.py) — the TPU
-        # replacement for per-ray BVH walks: block-granular AABB culling +
-        # per-cluster MXU sweeps with coefficients streamed HBM→VMEM.
-        from optix_renderer_tpu.ops.pallas.cluster import (
-            cluster_any_hit,
-            cluster_closest_hit,
-        )
-
-        if any_hit:
-            occ = cluster_any_hit(ray.o, ray.d, ray.mint, best.t, geom.clusters)
-            best = Hit(
-                t=jnp.where(occ, ray.mint, best.t),
-                prim_kind=jnp.where(occ, PRIM_TRI, best.prim_kind),
-                prim_id=jnp.zeros_like(best.prim_id),
-                u=best.u,
-                v=best.v,
-            )
-        else:
-            bt, bu, bv, idf = cluster_closest_hit(
-                ray.o, ray.d, ray.mint, best.t,
-                geom.tri_v0, geom.tri_e1, geom.tri_e2, geom.clusters,
-            )
-            bf = idf >= 0.0
-            best = Hit(
-                t=bt,
-                prim_kind=jnp.where(bf, PRIM_TRI, best.prim_kind),
-                prim_id=jnp.maximum(idf, 0.0).astype(jnp.int32),
-                u=bu,
-                v=bv,
-            )
-    elif (
-        geom.tri_mxu is not None
-        and jax.default_backend() == "tpu"
-        and n_tris > 0
-    ):
-        # MXU matmul brute force (ops/pallas/mxu_intersect.py): on TPU the
-        # systolic-array sweep beats the gather-bound LBVH walk up to
-        # MAX_MXU_TRIS even when an LBVH exists (built for the CPU path)
-        from optix_renderer_tpu.ops.pallas.mxu_intersect import mxu_closest_hit
-
-        bt, bu, bv, idf = mxu_closest_hit(
-            ray.o, ray.d, ray.mint, best.t,
-            geom.tri_v0, geom.tri_e1, geom.tri_e2, geom.tri_mxu,
-        )
-        bf = idf >= 0.0
-        best = Hit(
-            t=bt,
-            prim_kind=jnp.where(bf, PRIM_TRI, best.prim_kind),
-            prim_id=jnp.maximum(idf, 0.0).astype(jnp.int32),
-            u=bu,
-            v=bv,
-        )
-    elif geom.bvh.node_min.shape[0] > 0:
-        # LBVH path for large meshes on CPU (ops/bvh.py) — static dispatch:
-        # the BVH is part of the scene pytree, so jit traces one branch.
+    if geom.bvh.node_min.shape[0] > 0:
+        # LBVH path for meshes of MIN_TRIS_FOR_BVH triangles or more
+        # (ops/bvh.py) — static dispatch: the BVH is part of the scene
+        # pytree, and build.py builds it only above that size, so jit traces
+        # one branch.
         bt, bi, bu, bv, bf = bvh_mod.traverse(
             geom.bvh,
             geom.tri_v0,
@@ -177,8 +180,7 @@ def intersect(geom: Geometry, ray: Ray, any_hit: bool = False) -> Hit:
             v=bv,
         )
     elif n_tris > 0:
-        # Pallas Möller–Trumbore sweep on TPU (jnp sweep elsewhere); the
-        # min-reduction is fused — see ops/pallas/mt_kernel.
+        # brute-force Möller–Trumbore sweep below MIN_TRIS_FOR_BVH
         bt, bu, bv, idf = mt_closest_hit(
             ray.o, ray.d, ray.mint, best.t,
             geom.tri_v0, geom.tri_e1, geom.tri_e2,

@@ -1,6 +1,6 @@
 """Photon mapping: wavefront photon tracing + hash-grid radiance estimation.
 
-TPU-native counterpart of the reference photon mapper
+Counterpart of the reference photon mapper
 (src/integrators/photonmapper.cpp, include/nori/{photon,kdtree}.h):
 
 * **Tracing** (`trace_photons`): the reference's per-photon while loop
@@ -12,7 +12,7 @@ TPU-native counterpart of the reference photon mapper
 * **Map** (`build_photon_map`): the balanced kd-tree (kdtree.h:124) is
   replaced by a **uniform hash grid sorted by cell hash** — range search
   becomes 27 neighbor-cell `searchsorted` lookups + bounded per-cell scans,
-  which are pure gathers (no pointer chasing), the layout TPUs want
+  which are pure gathers (no pointer chasing), the layout a wavefront wants
   (SURVEY.md §7 phase 4: "kd-tree → grid-hash gather").
 
 * **Gather** (`estimate_radiance`): photon-density estimate at a shading

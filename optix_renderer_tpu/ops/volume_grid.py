@@ -1,8 +1,8 @@
 """Heterogeneous media: voxel-grid sampling, delta tracking, ratio tracking.
 
-TPU-native counterpart of the reference heterogeneous medium
+Counterpart of the reference heterogeneous medium
 (src/media/heterogmedium.cpp + NanoVDB HDDA): the sparse NanoVDB tree becomes
-a dense voxel grid in HBM (SURVEY.md §5.7c: "dense/paged voxel pyramid with
+a dense voxel grid in device memory (SURVEY.md §5.7c: "dense/paged voxel pyramid with
 DDA marching"); the world↔index ray transform (heterogmedium.cpp:105-140)
 becomes an axis-aligned bbox map; and the data-dependent null-collision walks
 become bounded `lax.while_loop`s over the whole ray wavefront.
@@ -55,8 +55,9 @@ def _trilinear_at(media, med_id: jnp.ndarray, p: jnp.ndarray, corners) -> jnp.nd
 
     The corner stack lives in a one-voxel zero-padded index space, so voxels
     outside the grid read exactly 0 and no per-corner bounds masks are needed
-    — bit-identical to 8 masked scalar gathers, measured ~7x faster on v5e
-    (the gather is the hot op of every delta/ratio-tracking step).
+    — bit-identical to 8 masked scalar gathers (the gather is the hot op of
+    every delta/ratio-tracking step; its speed against a direct eight-tap
+    gather on the GPU is not measured yet).
     """
     mid = jnp.maximum(med_id, 0)
     vid = jnp.maximum(media.vol_id[mid], 0)
@@ -121,6 +122,14 @@ def _majorant(media, med_id):
     return st_max * dmax
 
 
+def _advance(active, new, old):
+    """Advance the sampler only on lanes still walking: a lane then draws
+    exactly the numbers its own walk needs, so its estimate does not depend
+    on how long the other lanes of its wavefront walk (the loop runs until
+    the last lane is done)."""
+    return jax.tree_util.tree_map(lambda a, b: jnp.where(active, a, b), new, old)
+
+
 def delta_track(media, med_id, s, ro, rd, t_max):
     """Woodcock/delta tracking to the next real collision.
 
@@ -169,8 +178,9 @@ def delta_track(media, med_id, s, ro, rd, t_max):
 
     def body(state):
         st, t, active, t_event, K, k = state
-        st, u1 = rng.pcg32_next_float(st)
-        st, u2 = rng.pcg32_next_float(st)
+        st_next, u1 = rng.pcg32_next_float(st)
+        st_next, u2 = rng.pcg32_next_float(st_next)
+        st = _advance(active, st_next, st)
         t_new = t - jnp.log(jnp.maximum(1.0 - u1, 1e-38)) / jnp.maximum(M, 1e-20)
         escaped = t_new > t1
         p = ro + rd * t_new[..., None]
@@ -250,7 +260,8 @@ def ratio_track(media, med_id, s, o, d, dist):
 
     def body(state):
         st, t, active, T, K, k = state
-        st, u1 = rng.pcg32_next_float(st)
+        st_next, u1 = rng.pcg32_next_float(st)
+        st = _advance(active, st_next, st)
         t_new = t - jnp.log(jnp.maximum(1.0 - u1, 1e-38)) / jnp.maximum(M, 1e-20)
         escaped = t_new > t1
         p = o + d * t_new[..., None]

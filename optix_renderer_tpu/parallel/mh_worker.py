@@ -8,13 +8,13 @@ hand:
         --local-devices 4 --out /tmp/mh0.npz
 
 Each process joins the distributed runtime with `--local-devices` virtual CPU
-devices (gloo collectives — the DCN stand-in), builds the global
+devices (gloo collectives — the stand-in for the network between hosts), builds the global
 (tile × sample) mesh, renders the procedural Cornell box, runs one sharded
 differentiable train step, and (process 0) writes the film + grads + scaling
 JSON for the test to verify against a single-process render.
 
-This rehearses the exact code path a real TPU pod runs (multihost.py) —
-device platform is the only substitution.
+This rehearses the exact code path a real multi-host run takes
+(multihost.py) — the device platform is the only substitution.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ def main() -> None:
     print(f"[mh_worker {args.process_id}] render done", flush=True)
 
     # one differentiable train step across hosts: parameter grads are psum'd
-    # over DCN by the backward pass of the film reduction
+    # between hosts by the backward pass of the film reduction
     scene_g = stage_replicated_tree(mesh, scene)
     ids_g = stage_global(
         mesh, P("tile"), _tile_padded_pixel_ids(config, mesh.devices.shape[0])

@@ -1,15 +1,15 @@
-"""Multi-host (multi-process) execution over DCN + ICI.
+"""Multi-host (multi-process) execution.
 
 The reference's only cross-device cooperation is the CPU/GPU sample split
 inside one process (src/utils/render.cpp:281,501) with a weighted composite
-(render.cpp:725-747). The TPU-native generalization (SURVEY.md §2.8 item 3,
+(render.cpp:725-747). Its generalization here (SURVEY.md §2.8 item 3,
 §5.8) is a *multi-controller* JAX program: every host runs this same code,
 `jax.distributed.initialize` forms the global runtime, and one global
-(tile × sample) mesh spans all hosts' chips.
+(tile × sample) mesh spans all hosts' devices.
 
 Topology-aware mesh: the **tile axis spans hosts** (each host owns a
 contiguous slab of pixel lanes — zero communication during a round) and the
-**sample axis stays within a host** (ICI). The only cross-DCN collective is
+**sample axis stays within a host**. The only collective between hosts is
 the per-launch `psum` of the partial film — the distributed replacement for
 the reference's mutex-guarded ImageBlock merge (block.cpp:125) and its
 per-device sample-count weighting.
@@ -24,11 +24,9 @@ Usage (same command on every host):
         --distributed --coordinator HOST0:9876 \
         --num-processes 4 --process-id $RANK
 
-On a TPU pod with the standard launcher, omit the explicit triple —
-`jax.distributed.initialize()` auto-detects. A local CPU rehearsal
-(N processes × K virtual devices each) is `tests/test_multihost.py` /
-`scripts/run_multihost_dryrun` — the harness the ≥90% scaling target is
-validated with before real multi-host hardware exists.
+The coordinator address, process count and process id are always given
+explicitly. A local CPU rehearsal (N processes × K virtual devices each) is
+`tests/test_multihost.py`.
 """
 
 from __future__ import annotations
@@ -52,7 +50,8 @@ def init_distributed(
 ) -> None:
     """Join the multi-controller runtime.
 
-    With no arguments, defers to JAX's environment auto-detection (TPU pods).
+    With no arguments, defers to JAX's environment auto-detection (a
+    cluster launcher that JAX recognises).
     `local_cpu_devices` forces the CPU platform with that many virtual local
     devices and gloo collectives — the hardware-free rehearsal mode.
     """
@@ -63,12 +62,9 @@ def init_distributed(
         # rehearsals run on starved CI hosts: reuse compiled programs across
         # worker launches (cache keys include the device topology, so this is
         # safe across mesh shapes)
-        import os
+        from optix_renderer_tpu.utils.compile_cache import enable_compile_cache
 
-        os.makedirs("/root/.cache/jax_test_cache", exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_test_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+        enable_compile_cache(min_compile_secs=1.0)
     if coordinator is None and num_processes is None:
         jax.distributed.initialize()
     else:
@@ -82,12 +78,9 @@ def init_distributed(
 def make_multihost_mesh(sample_axis: int | None = None) -> Mesh:
     """Global (tile, sample) mesh with hosts grouped along the tile axis.
 
-    DCN-aware: devices are grouped by owning process so each host's devices
-    are contiguous in the tile axis — tile-sharded pixel slabs never cross
-    DCN, and the sample axis (which psums every launch) rides ICI only.
-    (`mesh_utils.create_hybrid_device_mesh` groups by TPU *slice*, which is 1
-    for single-slice multi-host pods and for the CPU rehearsal — process
-    granularity is the correct DCN boundary for both.)
+    Devices are grouped by owning process so each host's devices are
+    contiguous in the tile axis — tile-sharded pixel slabs never cross
+    hosts, and the sample axis (which psums every launch) stays on one host.
     """
     n_local = jax.local_device_count()
     n_proc = jax.process_count()
@@ -179,7 +172,7 @@ def render_multihost(
 
 
 # ---------------------------------------------------------------------------
-# Scaling-efficiency harness (the BASELINE ≥90% 1→N target's measurement).
+# Scaling-efficiency harness: paths/s on one device vs the full mesh.
 # ---------------------------------------------------------------------------
 
 

@@ -1,12 +1,13 @@
 """Multi-device execution: shard_map over a (tile × sample) device mesh.
 
-The TPU-native replacement for the reference's parallelism stack
-(SURVEY.md §2.8): TBB tile parallel_for (render.cpp:288-347) → lane sharding
-over the "tile" mesh axis; the CPU/GPU cooperative sample split
-(render.cpp:281,501) → the "sample" mesh axis; mutex-guarded ImageBlock merges
-(block.cpp:125) → `psum` of partial film planes over ICI. Scene tables are
-replicated (they are read-only per round); the film reduction is the only
-collective.
+The replacement for the reference's parallelism stack (SURVEY.md §2.8): TBB
+tile parallel_for (render.cpp:288-347) → lane sharding over the "tile" mesh
+axis; the CPU/GPU cooperative sample split (render.cpp:281,501) → the
+"sample" mesh axis; mutex-guarded ImageBlock merges (block.cpp:125) → `psum`
+of partial film planes, which XLA lowers to an all-reduce between the cards.
+Scene tables are replicated (they are read-only per round); the film
+reduction is the only collective. The cards of one host are joined all to
+all, so the mesh follows the algorithm alone.
 
 Determinism under any mesh shape: each lane's sampler is seeded by
 (pixel_id, global_sample_idx) only (render/sampler.py), so device count and
@@ -103,138 +104,8 @@ def _sharded_round_jit(scene, config, mesh, pixel_ids, sample_base):
 
 @partial(jax.jit, static_argnames=("config", "mesh"), donate_argnums=(0,))
 def _sharded_round_acc_jit(acc, scene, config, mesh, pixel_ids, sample_base):
-    # fused accumulate (see render.py render_round_accumulate: eager adds
-    # dominate wall clock ~30× over the render itself)
+    # fused accumulate (see render.py render_round_accumulate)
     return acc + sharded_render_round(scene, config, mesh, pixel_ids, sample_base)
-
-
-@partial(
-    jax.jit,
-    static_argnames=("config", "mesh", "n_spp", "t_cnt", "te_cnt", "use_mxu",
-                     "use_dof", "n_sph", "n_emitters", "interpret"),
-    donate_argnums=(0,),
-)
-def _sharded_pathk_group(
-    acc: jnp.ndarray,  # [3,H,W,4] donated
-    tables: dict,
-    config: RenderConfig,
-    mesh: Mesh,
-    spp0: jnp.ndarray,
-    n_spp: int,
-    t_cnt: int,
-    te_cnt: int,
-    use_mxu: bool,
-    use_dof: bool,
-    n_sph: int,
-    n_emitters: int,
-    interpret: bool,
-) -> jnp.ndarray:
-    """Regenerating megakernel under shard_map: pixel blocks are partitioned
-    over the FLATTENED (tile × sample) mesh (each device owns a contiguous
-    block range via its `base_block`; the kernel loops spp internally), so
-    multi-chip multiplies the FAST path — the analog of the reference's two
-    device loops sharing one sample budget (render.cpp:281,501). No psum:
-    the film is pixel-partitioned and reassembled by the output sharding."""
-    from optix_renderer_tpu.ops.pallas import pathk
-
-    w, h = config.width, config.height
-    n_pix = w * h
-    n_dev = int(mesh.devices.size)
-    n_sample = int(mesh.devices.shape[1])
-    nb = (n_pix + pathk.BLOCK - 1) // pathk.BLOCK
-    nb_pad = (nb + n_dev - 1) // n_dev * n_dev
-    nb_loc = nb_pad // n_dev
-    meta = {
-        "t_cnt": t_cnt, "te_cnt": te_cnt, "use_mxu": use_mxu,
-        "use_dof": use_dof, "n_sph": n_sph, "n_emitters": n_emitters,
-    }
-
-    def body(tables_rep, spp0_rep):
-        dev = (
-            jax.lax.axis_index("tile") * n_sample
-            + jax.lax.axis_index("sample")
-        ).astype(jnp.int32)
-        return pathk.pathk_trace(
-            tables_rep, meta, config, n_pix=n_pix, nb=nb_loc, spp0=spp0_rep,
-            n_spp=n_spp, base_block=dev * nb_loc, interpret=interpret,
-        )  # [16, nb_loc, S, L] per device
-
-    out = shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(), P()),
-        out_specs=P(None, ("tile", "sample")),
-        check_vma=False,
-    )(tables, spp0)  # [16, nb_pad, S, L] block-sharded
-
-    out = jnp.transpose(out, (1, 0, 2, 3)).reshape(nb_pad, 16, -1)
-    out = jnp.transpose(out, (1, 0, 2)).reshape(16, nb_pad * pathk.BLOCK)
-    out = out[:, :n_pix]
-    out = jnp.nan_to_num(out, nan=0.0, posinf=0.0, neginf=0.0)
-    vals = out[jnp.array([0, 1, 2, 4, 5, 6, 7, 8, 9])]
-    vals = vals.reshape(3, 3, h, w).transpose(0, 2, 3, 1)
-    wch = out[3].reshape(h, w)
-    contrib = jnp.concatenate(
-        [vals, jnp.broadcast_to(wch[None, :, :, None], (3, h, w, 1))], axis=-1
-    )
-    return acc + contrib
-
-
-def _render_sharded_mega(scene, config, mesh, spp, verbose, preview_every,
-                         preview_callback, checkpoint_path, checkpoint_every,
-                         resume):
-    """render_sharded fast path: the pathk megakernel on every device."""
-    import os
-
-    from optix_renderer_tpu.ops.pallas import pathk
-    from optix_renderer_tpu.render.render import (
-        _layers_out,
-        _norm_ckpt_path,
-        load_checkpoint,
-        save_checkpoint,
-    )
-
-    tables, meta = pathk.build_pathk_tables(scene, config)
-    interpret = jax.default_backend() != "tpu"
-    acc = jnp.zeros((3, config.height, config.width, 4), jnp.float32)
-    start_spp = 0
-    if resume and checkpoint_path and os.path.exists(_norm_ckpt_path(checkpoint_path)):
-        acc, start_spp = load_checkpoint(checkpoint_path, config)
-        if verbose:
-            print(f"  resumed at sample {start_spp} from {checkpoint_path}")
-
-    group = 16
-    if preview_every:
-        group = min(group, preview_every)
-    if checkpoint_every:
-        group = min(group, checkpoint_every)
-
-    spp_done = start_spp
-    try:
-        while spp_done < spp:
-            n_r = min(group, spp - spp_done)
-            acc = _sharded_pathk_group(
-                acc, tables, config, mesh, jnp.int32(spp_done), n_r,
-                meta["t_cnt"], meta["te_cnt"], meta["use_mxu"],
-                meta["use_dof"], meta["n_sph"], meta["n_emitters"], interpret,
-            )
-            spp_done += n_r
-            if verbose:
-                np.asarray(acc[0, 0, 0, 0])
-                print(f"  sample {spp_done}/{spp}")
-            if preview_every and preview_callback and spp_done % preview_every == 0:
-                preview_callback(_layers_out(acc), spp_done)
-            if checkpoint_path and checkpoint_every and spp_done % checkpoint_every == 0:
-                save_checkpoint(checkpoint_path, acc, spp_done, config)
-    except KeyboardInterrupt:
-        if verbose:
-            print(f"  interrupted at sample {spp_done}/{spp} — partial film returned")
-
-    if checkpoint_path and spp_done >= spp:
-        save_checkpoint(checkpoint_path, acc, spp_done, config)
-    out = _layers_out(acc)
-    out["spp_done"] = spp_done
-    return out
 
 
 def render_sharded(
@@ -248,7 +119,6 @@ def render_sharded(
     checkpoint_path: str | None = None,
     checkpoint_every: int = 0,
     resume: bool = False,
-    mega: bool | None = None,
 ) -> dict[str, np.ndarray]:
     """Full multi-device render (the distributed renderThreadMain analog).
 
@@ -272,17 +142,6 @@ def render_sharded(
     if mesh is None:
         mesh = make_mesh()
     spp = sample_count if sample_count is not None else config.sample_count
-
-    # fast path: eligible classic scenes run the regenerating megakernel on
-    # every device (pixel-block sharding) instead of the XLA integrators —
-    # multi-chip must multiply the production path, not the fallback
-    from optix_renderer_tpu.ops.pallas.pathk import pathk_eligible
-
-    if mega is not False and not config.adaptive and pathk_eligible(scene, config):
-        return _render_sharded_mega(
-            scene, config, mesh, spp, verbose, preview_every,
-            preview_callback, checkpoint_path, checkpoint_every, resume,
-        )
 
     n_sample_dev = mesh.devices.shape[1]
     n_rounds = max(1, (spp + n_sample_dev - 1) // n_sample_dev)

@@ -7,7 +7,7 @@ builds a DiscretePDF over the per-pixel variance map and draws the round's
 pixel budget from it; rendering stops early when the variance map stops
 improving.
 
-TPU-native deviation: the reference adapts per 4-pixel block
+Deviation: the reference adapts per 4-pixel block
 (block.h:30-31); here the unit is the whole image — the variance map, the
 categorical draw (searchsorted over one CDF), and the splat are all single
 fused device ops over the full wavefront, which is both simpler and faster

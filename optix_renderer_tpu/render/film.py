@@ -61,10 +61,10 @@ def splat(
     """Scatter-add filtered samples → [K,H,W,4] (rgb·w, w).
 
     `mask` suppresses lanes by zeroing their filter weight while KEEPING their
-    in-bounds scatter position: TPU scatter-add serializes colliding updates,
-    so funnelling masked lanes to one clipped pixel (the out-of-bounds trick
-    used for padding lanes) collapses throughput when most lanes are masked —
-    the wavefront renderer masks ~80% of lanes per iteration.
+    in-bounds scatter position: funnelling masked lanes to one clipped pixel
+    (the out-of-bounds trick used for padding lanes) would make every masked
+    lane collide on that pixel's scatter-add — the wavefront renderer masks
+    most lanes per iteration.
     """
     radius = FILTER_RADIUS[rfilter]
     support = int(2 * radius + 0.999)  # pixels per axis covered by the kernel

@@ -1,7 +1,7 @@
 """Wavefront path regeneration: a persistent lane pool with between-bounce
 compaction-by-refill.
 
-TPU-native replacement of the per-thread early-out in the reference's GPU
+Replacement of the per-thread early-out in the reference's GPU
 megakernel (include/nori/optix/cuda/raygen.cpp:102-131: `prd.terminated`
 breaks the per-thread path loop) and the SURVEY §7 Phase-2e wavefront
 compaction step. The scan-based integrators (integrators/path.py) advance

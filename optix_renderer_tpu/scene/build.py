@@ -580,36 +580,11 @@ class _Builder:
             sph_radius = np.zeros(0, np.float32)
             sph_shape = np.zeros(0, np.int32)
 
-        # Acceleration choice (scene.cpp:187-194 BVH rebuild analog): up to
-        # MAX_MXU_TRIS the MXU matmul brute force wins on TPU (128
-        # flops/ray·tri on the systolic array beats any gather-based walk on
-        # this backend — see ops/pallas/mxu_intersect.py); larger meshes get
-        # the LBVH.
-        from optix_renderer_tpu.ops.pallas import mxu_intersect as mxu_mod
-
-        tri_mxu = None
-        clusters = None
-        if 0 < len(tri_v0) <= mxu_mod.MAX_MXU_TRIS:
-            tri_mxu = jnp.asarray(
-                mxu_mod.build_tri_coeffs(
-                    tri_v0, tri_v1 - tri_v0, tri_v2 - tri_v0
-                )
-            )
-            # the MXU table serves the TPU; CPU runs keep the LBVH above the
-            # brute-force threshold (intersect() picks per backend)
-            if len(tri_v0) >= bvh_mod.MIN_TRIS_FOR_BVH:
-                bvh = bvh_mod.build_bvh(tri_v0, tri_v1, tri_v2)
-            else:
-                bvh = bvh_mod.empty_bvh()
-        elif len(tri_v0) > 0:
+        # Acceleration choice (scene.cpp:187-194 BVH rebuild analog): the
+        # LBVH from MIN_TRIS_FOR_BVH triangles up; smaller meshes take the
+        # brute-force sweep (ops/intersect.py).
+        if len(tri_v0) >= bvh_mod.MIN_TRIS_FOR_BVH:
             bvh = bvh_mod.build_bvh(tri_v0, tri_v1, tri_v2)
-            # TPU traversal tables (ops/pallas/cluster.py): built alongside
-            # the LBVH — intersect() picks clusters on TPU, LBVH elsewhere
-            from optix_renderer_tpu.ops.pallas import cluster as cluster_mod
-
-            clusters = cluster_mod.build_clusters(
-                tri_v0, tri_v1 - tri_v0, tri_v2 - tri_v0
-            )
         else:
             bvh = bvh_mod.empty_bvh()
         if len(sph_center) >= bvh_mod.MIN_SPHS_FOR_BVH:
@@ -650,8 +625,6 @@ class _Builder:
             sph_shape=_j(sph_shape, jnp.int32),
             bvh=bvh,
             sph_bvh=sph_bvh,
-            tri_mxu=tri_mxu,
-            clusters=clusters,
         )
 
         # shape offsets into the global triangle array (for emitter CDFs)

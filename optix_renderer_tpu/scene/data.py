@@ -105,15 +105,6 @@ class Geometry(NamedTuple):
     # OptixState.as.cpp:47-169; the reference CPU BVH indexes all shapes'
     # primitives in one tree, bvh.h:43-171). Empty → brute-force sweep.
     sph_bvh: Bvh
-    # MXU brute-force coefficient table (ops/pallas/mxu_intersect.py
-    # build_tri_coeffs, [4*Tpad,16]) for small/medium meshes; None disables
-    # the MXU path (large scenes use the LBVH, CPU uses the jnp sweep).
-    tri_mxu: jnp.ndarray | None = None
-    # Two-level Morton-cluster tables (ops/pallas/cluster.py) for large
-    # meshes on TPU — the hardware-native BVH replacement: per-cluster bf16
-    # MT coefficient blocks streamed HBM→VMEM, block-granular AABB culling.
-    # None on CPU-only builds / small scenes (they use LBVH / MXU brute).
-    clusters: object | None = None
 
 
 class Shapes(NamedTuple):
@@ -224,8 +215,7 @@ class Media(NamedTuple):
     # fused trilinear-corner stacks: row i holds the 8 cell-corner values of
     # base voxel i in a one-voxel ZERO-PADDED index space (strides
     # (D+1)(H+1)(W+1)), so a lookup is ONE [N,8]-row gather + an in-lane dot
-    # — measured 7x faster than 8 scalar gathers on the v5e (the hot op of
-    # delta/ratio tracking, heterogmedium.cpp:105-174 analog)
+    # (the hot op of delta/ratio tracking, heterogmedium.cpp:105-174 analog)
     # None defaults (NOT empty jnp arrays: a module-level array literal would
     # initialize the JAX backend at import time, breaking multi-process
     # workers that must configure device counts first)
@@ -278,7 +268,7 @@ class RenderConfig:
 
     The analog of the reference's XML-root scene attributes + OptixRenderer
     config (sampleCount etc.); changing any of these retraces, which is the
-    TPU analog of the reference's NVRTC bound-value specialization.
+    analog of the reference's NVRTC bound-value specialization.
     """
 
     width: int = 1280

@@ -2,9 +2,9 @@
 
 Counterpart of the reference's OpenVDB→NanoVDB conversion path
 (src/textures/NvdbVolume.vdb.cpp:9-58): where the reference densifies a
-sparse VDB into a NanoVDB tree for GPU HDDA marching, the TPU build
-densifies it into a dense [Z,Y,X] numpy grid (the TPU representation is
-dense HBM bricks marched by delta tracking, ops/volume_grid.py).
+sparse VDB into a NanoVDB tree for GPU HDDA marching, this build
+densifies it into a dense [Z,Y,X] numpy grid (the device representation is
+dense bricks marched by delta tracking, ops/volume_grid.py).
 
 Scope — exactly what the reference's scenes need (fluid_data_0050.vdb and
 friends): OpenVDB file format ≥ 222 (NODE_MASK_COMPRESSION), scalar float
@@ -14,8 +14,8 @@ transforms. Vec3 grids (velocity) are skipped via the grid-descriptor byte
 offsets, so only the grids asked for are decoded.
 
 The blosc container and LZ4 block codec are decoded in numpy/Python — VDB
-ingestion is a one-time scene-compile step cached as .npz beside the file
-(scene/volume_io.py), so decode speed is irrelevant.
+ingestion is a one-time scene-compile step cached as .npz in the user cache
+directory (scene/volume_io.py), so decode speed is irrelevant.
 """
 
 from __future__ import annotations
@@ -156,8 +156,10 @@ def _blosc_decompress(src: bytes) -> bytes:
 
     Header: version, versionlz, flags, typesize, nbytes, blocksize, cbytes
     (16 bytes); then per-block uint32 offsets; blocks are split into
-    `typesize` sub-streams when shuffle is on (c-blosc forward-compat split
-    for blosclz/lz4), each sub-stream prefixed by an int32 compressed size.
+    `typesize` sub-streams (c-blosc forward-compat split for blosclz/lz4),
+    each sub-stream prefixed by an int32 compressed size. Shuffle applies
+    per block; a memcpyed chunk holds the values as they are, whatever the
+    shuffle flag says.
     """
     if len(src) < 16:
         raise VdbError("blosc chunk too short")
@@ -191,6 +193,7 @@ def _blosc_decompress(src: bytes) -> bytes:
             nsplits = typesize if (do_split and bsize % typesize == 0) else 1
             neblock = bsize // nsplits
             sp = bstarts[bi]
+            block = bytearray()
             for _ in range(nsplits):
                 (csize,) = struct.unpack("<i", src[sp : sp + 4])
                 sp += 4
@@ -206,15 +209,21 @@ def _blosc_decompress(src: bytes) -> bytes:
                     dec = zlib.decompress(part)
                 else:
                     raise VdbError(f"unsupported blosc codec id {codec}")
-                out[opos : opos + neblock] = dec
-                opos += neblock
+                block += dec
+            if shuffle and typesize > 1:
+                block = _unshuffle(bytes(block), typesize)
+            out[opos : opos + bsize] = block
+            opos += bsize
         out = bytes(out)
-
-    if shuffle and typesize > 1:
-        # byte shuffle: stream is typesize planes of nbytes/typesize bytes
-        arr = np.frombuffer(out, np.uint8).reshape(typesize, -1)
-        out = arr.T.tobytes()
     return out
+
+
+def _unshuffle(block: bytes, typesize: int) -> bytes:
+    """Undo c-blosc's byte shuffle of one block: `typesize` byte planes of
+    the whole elements, then the trailing bytes unshuffled."""
+    n = len(block) - len(block) % typesize
+    planes = np.frombuffer(block, np.uint8, count=n).reshape(typesize, -1)
+    return planes.T.tobytes() + block[n:]
 
 
 # ---------------------------------------------------------------------------

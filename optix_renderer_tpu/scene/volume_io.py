@@ -3,7 +3,7 @@
 Counterpart of the reference's NvdbVolume loader (src/textures/NvdbVolume.cpp,
 NvdbVolume.vdb.cpp: loads .nvdb directly or converts .vdb → NanoVDB with an
 mtime-invalidated cache). Here every source is densified to a numpy grid
-(the TPU representation is dense HBM bricks, not sparse trees):
+(the device representation is dense bricks, not sparse trees):
 
 - `.vdb`  — pure-Python OpenVDB reader (scene/vdb.py) for float 5_4_3 trees,
             with the same `.npz` conversion cache + mtime invalidation as the

@@ -1,6 +1,6 @@
 """Live view + edit server: the interactive render loop (`render --serve`).
 
-The TPU-native replacement for the reference's ImGui screen + two-tree edit
+The replacement for the reference's ImGui screen + two-tree edit
 model (src/utils/ImguiScreen.cpp:252-316 display compositing,
 render.cpp:613-691 render-control panel + scene-tree property editor,
 object.h:142-176 touched-flag `update()` protocol):

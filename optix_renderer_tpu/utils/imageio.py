@@ -1,9 +1,9 @@
 """Image I/O: OpenEXR (self-contained codec) + PNG, and sRGB conversion.
 
 Counterpart of the reference `Bitmap` (include/nori/bitmap.h, src/utils/
-bitmap.cpp): EXR for HDR render output, PNG for LDR. The EXR codec here is a
-minimal pure-numpy implementation of the OpenEXR 2 scanline format
-(uncompressed FLOAT channels) — no OpenEXR library dependency.
+bitmap.cpp): EXR for HDR render output, PNG for LDR. Both codecs are minimal
+numpy + zlib implementations — the OpenEXR 2 scanline format (uncompressed
+FLOAT channels) and 8-bit PNG — so no image library is needed.
 """
 
 from __future__ import annotations
@@ -215,42 +215,116 @@ def read_hdr(path: str | Path) -> np.ndarray:
     return out
 
 
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# PNG color type → channels (0 gray, 2 RGB, 4 gray+alpha, 6 RGBA)
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (
+        struct.pack(">I", len(data)) + tag + data
+        + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+    )
+
+
+def _to_ldr(image: np.ndarray, tonemap: bool) -> np.ndarray:
+    img = np.asarray(image, np.float32)
+    if tonemap:
+        img = linear_to_srgb(img)
+    return np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def encode_png(image: np.ndarray, tonemap: bool = True) -> bytes:
+    """[h,w,3|4] linear float → 8-bit RGB/RGBA PNG bytes (sRGB-encoded when
+    `tonemap`, like hdrToLdr.cpp:22-40). Rows are stored unfiltered."""
+    img = _to_ldr(image, tonemap)
+    if img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"expected [h,w,3|4], got {img.shape}")
+    h, w, c = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
+    return (
+        _PNG_SIG
+        + _png_chunk(b"IHDR", ihdr)
+        + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+        + _png_chunk(b"IEND", b"")
+    )
+
+
+def write_png(path: str | Path, image: np.ndarray, tonemap: bool = True) -> None:
+    """Write [h,w,3|4] linear float32 → PNG (see `encode_png`)."""
+    Path(path).write_bytes(encode_png(image, tonemap))
+
+
+def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters (None, Sub, Up, Average, Paeth).
+
+    Every filter predicts a pixel from its left (a), upper (b) and upper-left
+    (c) neighbours only, so the pixels of one anti-diagonal (x + y constant)
+    do not depend on each other: the loop walks the h + w - 1 diagonals, one
+    vectorised step each, whatever mix of filters the rows use."""
+    rows = raw.reshape(h, w * bpp + 1)
+    ftype = rows[:, 0]
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"bad PNG filter type {ftype.max()}")
+    line = rows[:, 1:].reshape(h, w, bpp).astype(np.int16)
+    out = np.zeros((h + 1, w + 1, bpp), np.int16)  # row 0 and column 0: zero border
+    for k in range(h + w - 1):
+        y = np.arange(max(0, k - w + 1), min(h, k + 1))
+        x = k - y
+        a, b, c = out[y + 1, x], out[y, x + 1], out[y, x]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = np.choose(ftype[y, None], (0 * a, a, b, (a + b) >> 1, paeth))
+        out[y + 1, x + 1] = (line[y, x] + pred) & 255
+    return out[1:, 1:].astype(np.uint8).reshape(h, w * bpp)
+
+
+def read_png(path: str | Path) -> np.ndarray:
+    """Read an 8-bit, non-interlaced gray/RGB/RGBA PNG → [h,w,c] uint8."""
+    buf = Path(path).read_bytes()
+    if not buf.startswith(_PNG_SIG):
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, hdr = len(_PNG_SIG), [], None
+    while pos < len(buf):
+        (n,) = struct.unpack_from(">I", buf, pos)
+        tag, data = buf[pos + 4 : pos + 8], buf[pos + 8 : pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", data)
+        elif tag == b"IDAT":
+            idat.append(data)
+        elif tag == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, ctype, _comp, _filt, interlace = hdr
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
+        raise ValueError(
+            f"{path}: only 8-bit non-interlaced gray/RGB/RGBA PNGs are read "
+            f"(bit depth {depth}, color type {ctype}, interlace {interlace})"
+        )
+    c = _PNG_CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    return _unfilter(raw, h, w, c).reshape(h, w, c)
+
+
 def read_image(path: str | Path) -> np.ndarray:
-    """Read PNG/JPG (PIL), `.hdr` (RGBE) or EXR → [h,w,3] float32;
-    LDR formats land in [0,1], HDR formats keep linear radiance."""
+    """Read PNG, `.hdr` (RGBE) or EXR → [h,w,3] float32; PNG lands in
+    [0,1], HDR formats keep linear radiance. Other formats raise."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix == ".exr":
         return read_exr(path)[..., :3]
     if suffix == ".hdr":
         return read_hdr(path)
-    from PIL import Image
-
-    img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
-    return img
-
-
-def write_png(path: str | Path, image: np.ndarray, tonemap: bool = True) -> None:
-    """Write [h,w,3] linear float32 → PNG (sRGB, like hdrToLdr.cpp:22-40)."""
-    from PIL import Image
-
-    img = np.asarray(image, np.float32)
-    if tonemap:
-        img = linear_to_srgb(img)
-    img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    Image.fromarray(img).save(str(path))
-
-
-def encode_png(image: np.ndarray, tonemap: bool = True) -> bytes:
-    """In-memory PNG encode (the live-view frame path, serve.py)."""
-    import io
-
-    from PIL import Image
-
-    img = np.asarray(image, np.float32)
-    if tonemap:
-        img = linear_to_srgb(img)
-    img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    buf = io.BytesIO()
-    Image.fromarray(img).save(buf, format="PNG")
-    return buf.getvalue()
+    if suffix != ".png":
+        raise ValueError(
+            f"{path}: unsupported image format '{suffix}' "
+            "(PNG, EXR and Radiance .hdr are read)"
+        )
+    img = read_png(path)
+    if img.shape[2] in (1, 2):  # gray (+alpha) → RGB
+        img = np.repeat(img[..., :1], 3, axis=2)
+    return img[..., :3].astype(np.float32) / 255.0

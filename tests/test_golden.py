@@ -3,7 +3,7 @@
 The own-render analog of the reference's golden `scenes/` suite (SURVEY
 §4.3): any silent estimator/sampler/kernel drift fails here with a pixel
 diff, not a statistics shift. Goldens are generated by tools/gen_golden.py
-through the XLA reference path (mega=False) and committed; the renders are
+through the XLA integrators and committed; the renders are
 deterministic per (pixel, sample) seed, so the tolerance only absorbs
 cross-platform FP association noise.
 """
@@ -30,7 +30,6 @@ def test_golden_images_unchanged():
     assert GOLDEN.exists(), "run tools/gen_golden.py to create the suite"
     for name, scene, config, spp in _cases():
         ref = iio.read_exr(str(GOLDEN / f"{name}.exr"))[..., :3]
-        out = render(scene, config, sample_count=spp, mega=False,
-                     wavefront=False)["composite"]
+        out = render(scene, config, sample_count=spp)["composite"]
         err = np.max(np.abs(out - ref) / (np.abs(ref) + 1e-2))
         assert err < 1e-3, f"{name}: golden drift {err:.2e}"

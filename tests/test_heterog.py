@@ -160,3 +160,23 @@ def test_heterog_render_matches_homog(tmp_path):
     m_hom = float(out_hom["composite"].mean())
     assert m_het > 0
     assert abs(m_het - m_hom) / m_hom < 0.1, (m_het, m_hom)
+
+
+def test_lane_estimate_independent_of_its_batch():
+    """A pixel's heterogeneous-medium estimate depends on its own
+    (pixel, sample) stream only, not on which other lanes share its
+    wavefront: the tracking loops run until the batch's longest walk ends,
+    and a lane that is done must not draw further numbers."""
+    from optix_renderer_tpu.render.film import to_bitmap
+    from optix_renderer_tpu.render.render import render_round
+    from optix_renderer_tpu.scene.presets import make_procedural_smoke
+
+    scene, config, _ = make_procedural_smoke(width=24, height=18, grid=16, max_depth=4)
+    n_pix = config.width * config.height
+    full = np.asarray(to_bitmap(render_round(
+        scene, config, jnp.arange(n_pix, dtype=jnp.int32), jnp.int32(0))))
+    ids = np.arange(0, n_pix, 7, dtype=np.int32)
+    part = np.asarray(to_bitmap(render_round(scene, config, jnp.asarray(ids), jnp.int32(0))))
+    ys, xs = ids // config.width, ids % config.width
+    assert full[0].max() > 0
+    np.testing.assert_allclose(part[:, ys, xs], full[:, ys, xs], rtol=1e-5, atol=1e-6)

@@ -107,11 +107,13 @@ def test_parser_rejects_bad_tags():
         load_from_string("<scene><translate value='1 2 3'/></scene>")
 
 
-def test_reference_scene_parses():
-    """The real Cornell box XML from the reference scene suite compiles."""
-    scene, config, _ = __import__(
-        "optix_renderer_tpu.scene.build", fromlist=["load_scene"]
-    ).load_scene("/root/reference/scenes/pa4/cbox/cbox_path_mis.xml")
+def test_reference_scene_parses(tmp_path):
+    """A Cornell box XML in the reference suite's layout (cbox_path_mis.xml:
+    OBJ walls, two spheres, one area light, 512 spp) compiles."""
+    from optix_renderer_tpu.scene.build import load_scene
+    from optix_renderer_tpu.scene.presets import write_cornell_xml
+
+    scene, config, _ = load_scene(write_cornell_xml(tmp_path))
     assert config.n_tris == 12
     assert config.n_spheres == 2
     assert config.n_emitters == 1

@@ -1,8 +1,8 @@
 """Multi-host (multi-process) execution: 2-process CPU-backend rehearsal.
 
-Validates the jax.distributed path (parallel/multihost.py) without TPU pods:
+Validates the jax.distributed path (parallel/multihost.py) without a cluster:
 two OS processes × 4 virtual CPU devices each form one 8-device global mesh
-over gloo collectives (the DCN stand-in). The rendered film must match the
+over gloo collectives (the stand-in for the network between hosts). The rendered film must match the
 single-process render — lanes are seeded by (pixel_id, sample_idx) alone, so
 host count cannot change the image (SURVEY §2.8 item 3 contract; the
 reference's CPU/GPU cooperative split with weighted composite,

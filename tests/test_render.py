@@ -78,26 +78,20 @@ def test_sharded_matches_single_device(cbox):
     single = render(scene, config, sample_count=2)["composite"]
     mesh = make_mesh()  # 8 virtual CPU devices → (4,2) tile×sample
     assert mesh.devices.size == 8
-    sharded = render_sharded(scene, config, mesh, sample_count=2,
-                             mega=False)["composite"]
+    sharded = render_sharded(scene, config, mesh, sample_count=2)["composite"]
     np.testing.assert_allclose(sharded, single, atol=2e-4)
 
 
-@pytest.mark.heavy
-def test_sharded_mega_matches_unsharded_mega(cbox):
-    """The megakernel under shard_map (pixel-block partitioning) must
-    reproduce the single-device megakernel film exactly: per-lane streams
-    depend only on (pixel, sample), and blocks don't interact."""
-    from optix_renderer_tpu.render.mega_render import render_mega
-
+def test_sharded_box_filter_path_mats_matches_single_device(cbox):
+    """A classic surface scene with a box filter (the configuration a
+    separate sharded kernel path used to take) goes through the same
+    shard_map integrators and matches render() up to fp add order."""
     scene, config = cbox
-    config = dataclasses.replace(config, rfilter="box")
-    mesh = make_mesh()
-    sharded = render_sharded(scene, config, mesh, sample_count=2)
-    single = render_mega(scene, config, sample_count=2, interpret=True)
-    np.testing.assert_allclose(
-        sharded["composite"], single["composite"], atol=1e-5
-    )
+    config = dataclasses.replace(config, rfilter="box", integrator="path_mats")
+    single = render(scene, config, sample_count=2)
+    sharded = render_sharded(scene, config, make_mesh(), sample_count=2)
+    np.testing.assert_allclose(sharded["composite"], single["composite"], atol=2e-4)
+    np.testing.assert_allclose(sharded["weights"], single["weights"], atol=1e-5)
     assert sharded["spp_done"] == 2
 
 

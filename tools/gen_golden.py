@@ -1,25 +1,14 @@
 """Generate the golden-image regression suite (tests/golden/*.exr).
 
-Fixed-seed renders of the preset scene matrix through the XLA reference path
-(mega=False) on CPU — the committed analog of the reference's golden
+Fixed-seed renders of the preset scene matrix through the XLA integrators
+on CPU — the committed analog of the reference's golden
 `scenes/` EXRs (SURVEY §4.3). tests/test_golden.py re-renders and asserts
 drift < 1e-3. Regenerate ONLY for intentional estimator changes:
 
-    JAX_PLATFORMS=cpu python tools/gen_golden.py
+    PYTHONPATH=. python tools/gen_golden.py
 """
-import os
-
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-
 import dataclasses
 from pathlib import Path
-
-import numpy as np
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_test_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 GOLDEN = Path(__file__).resolve().parent.parent / "tests" / "golden"
 
@@ -42,13 +31,19 @@ def configs():
 
 
 def main():
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+
     from optix_renderer_tpu.render.render import render
     from optix_renderer_tpu.utils import imageio as iio
+    from optix_renderer_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_secs=1.0)
 
     GOLDEN.mkdir(exist_ok=True)
     for name, scene, config, spp in configs():
-        out = render(scene, config, sample_count=spp, mega=False,
-                     wavefront=False)
+        out = render(scene, config, sample_count=spp)
         path = GOLDEN / f"{name}.exr"
         iio.write_exr(path, out["composite"])
         print(f"{name}: mean={out['composite'].mean():.5f} → {path}")
